@@ -1,13 +1,16 @@
 # Convenience targets (CI parity with the reference's .gitlab-ci.yml
 # unittests/builddocs jobs).
 
-.PHONY: test bench baseline suite entrycheck lint
+.PHONY: test bench chip-smoke baseline suite entrycheck lint
 
 test:
 	python -m pytest tests/ -q
 
 bench:
 	python bench.py
+
+chip-smoke:
+	python chip_smoke.py
 
 suite:
 	python benchmarks/suite.py
@@ -16,12 +19,12 @@ baseline:
 	python benchmarks/reference_baseline.py
 
 entrycheck:
-	env -u JAX_PLATFORMS XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-	python -c "import jax; jax.config.update('jax_platforms','cpu'); \
+	JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+	python -c "import jax; \
 	import numpy as np, __graft_entry__ as g; f,a=g.entry(); \
 	print(np.asarray(jax.jit(f)(*a)).shape); g.dryrun_multichip(8); \
 	print('dryrun OK')"
 
 lint:
-	python -m pyflakes nsol_tpu tests bench.py __graft_entry__.py 2>/dev/null \
+	python -m pyflakes nsol_tpu tests bench.py chip_smoke.py __graft_entry__.py 2>/dev/null \
 	|| python -m py_compile $$(git ls-files '*.py')

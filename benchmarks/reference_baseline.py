@@ -4,16 +4,17 @@ The reference package cannot run here (pysitk missing), so this script
 reproduces its exact computational path with the reference's own backends —
 scipy.ndimage.convolve operators, scipy.sparse.linalg.lsmr(atol=btol=0)
 inner solves, float64 flattened arrays — for the north-star benchmark
-config (BASELINE.md #3): 3-D TV-L2 deconvolution of the bundled Shepp-Logan
+config (BASELINE.json #3): 3-D TV-L2 deconvolution of the bundled Shepp-Logan
 64³ phantom via ADMM (iterations=50, iter_max=10, alpha=0.01, rho=0.5,
 Gaussian blur sigma=1.0 voxel). Algorithm parameters mirror
 nsol/admm_linear_solver.py:202-253 and nsol/tikhonov_linear_solver.py:146-158.
 
 Writes measured iterations/sec to stdout; the number is recorded in
-BASELINE.md and consumed by bench.py as the vs_baseline denominator.
+bench.py as the vs_baseline denominator and the parity anchor.
 """
 
 import json
+import os
 import time
 
 import numpy as np
@@ -21,7 +22,8 @@ import scipy.ndimage as ndi
 import scipy.sparse.linalg
 
 import sys
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 from nsol_tpu.data import path as data_path          # noqa: E402
 from nsol_tpu.io import read_nifti                       # noqa: E402
@@ -98,7 +100,7 @@ def main():
         if it == 4:
             # report a mid-run estimate too (long full run)
             t5 = time.perf_counter() - t0
-            print("  5 iters: %.2fs (%.3f it/s)" % (t5, 5 / t5))
+            print("  5 iters: %.2fs (%.3f iterations/s)" % (t5, 5 / t5))
     elapsed = time.perf_counter() - t0
 
     r = A(x) - b

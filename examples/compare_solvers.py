@@ -5,8 +5,8 @@ the same denoising/deconvolution problem on a bundled image with all three
 solver families and reports converged objectives, runtimes, and similarity
 to the clean reference image.
 
-Run (CPU):  NSOL_TPU_PLATFORM=cpu python examples/compare_solvers.py
-Run (TPU):  python examples/compare_solvers.py
+Run (CPU):  JAX_PLATFORMS=cpu python examples/compare_solvers.py
+Run (GPU):  python examples/compare_solvers.py
 """
 
 import os

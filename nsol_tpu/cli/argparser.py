@@ -173,7 +173,7 @@ class InputArgparser(object):
                        "(picks the fastest valid engine: cg for "
                        "linear+separable, irls for robust+separable, "
                        "else lsmr/L-BFGS-B), 'lsmr' "
-                       "(CGLS on TPU), 'cg' (CG on fused normal equations "
+                       "(CGLS), 'cg' (CG on fused normal equations "
                        "— fastest for linear loss), 'irls' (reweighted CG "
                        "— fastest for robust losses), 'lsq_linear', "
                        "'least_squares', or a quasi-Newton name like "

@@ -20,8 +20,9 @@ from nsol_tpu.ops import conv as C
 from nsol_tpu.ops import grad as G
 
 
-def main():
-    from nsol_tpu.cli import setup_compile_cache
+def main(argv=None):
+    """Run the CLI on ``argv`` (default: ``sys.argv[1:]``)."""
+    from nsol_tpu.jitutil import setup_compile_cache
 
     setup_compile_cache()
     input_parser = InputArgparser(
@@ -44,7 +45,7 @@ def main():
     input_parser.add_dir_output_figures(default=None)
     input_parser.add_verbose(default=0)
     input_parser.add_trace(default=None)
-    args = input_parser.parse_args()
+    args = input_parser.parse_args(argv)
     input_parser.print_arguments(args)
 
     alphas = np.atleast_1d(args.alpha)
@@ -89,8 +90,7 @@ def main():
     # The default --minimizer auto resolves to the fastest valid inner
     # engine (linear+separable → cg, robust+separable → irls, else the
     # reference's lsmr / L-BFGS-B); data_loss is fixed per CLI run, so
-    # resolving here is safe and lets the fused-kernel gates below see
-    # the concrete engine. Explicit --minimizer lsmr keeps the
+    # resolving here is safe. Explicit --minimizer lsmr keeps the
     # reference path.
     from nsol_tpu.solvers.tikhonov import resolve_minimizer
 
@@ -111,114 +111,6 @@ def main():
         except Exception:
             normal_B = lambda x: G.gradient_normal(x, spacing)
 
-    # Fused whole-solve Pallas path: ADMM TVL2 deconvolution with the
-    # normal-equation inner engines ("cg" for the linear loss, "irls" for
-    # robust losses) runs as ONE VMEM-resident Mosaic program on TPU when
-    # the volume fits and no per-iteration measures are requested
-    # (parity: tests/test_pallas.py; speed: BASELINE.md).
-    fused_jit = None
-    if (args.solver == "ADMM" and args.reconstruction_type == "TVL2"
-            and x_ref is None
-            and ((args.data_loss == "linear" and args.minimizer == "cg")
-                 or (args.data_loss != "linear"
-                     and args.minimizer == "irls"))):
-        import jax
-        import jax.numpy as jnp
-        from nsol_tpu.jitutil import jit_closed
-        from nsol_tpu.ops.pallas import fused as _fused
-
-        # NSOL_TPU_FUSED_INTERPRET=1 forces the fused path in Pallas
-        # interpreter mode — lets CPU CI exercise this wiring.
-        # NSOL_TPU_FORCE_BLOCKED=1 skips the VMEM-resident kernel so the
-        # z-blocked streaming branch below is testable on small volumes.
-        interp = bool(os.environ.get("NSOL_TPU_FUSED_INTERPRET"))
-        force_blocked = bool(os.environ.get("NSOL_TPU_FORCE_BLOCKED"))
-        on_accel = interp or jax.default_backend() != "cpu"
-        bj = jnp.asarray(b / x_scale, jnp.float32)
-        rho0 = jnp.asarray(args.rho, bj.dtype)
-        dls0 = jnp.asarray(args.data_loss_scale, bj.dtype)
-        a0 = jnp.asarray(float(alphas[0]), bj.dtype)
-        if (on_accel and dimension in (2, 3) and not force_blocked
-                and _fused.fused_admm_fits_vmem(observed_nda.shape)):
-            # single-solve CLI runs are latency-bound — exactly the
-            # regime where high3 + compact_dirs wins (+29 % measured on
-            # the 64³ north-star, round 4) at f32-noise-class deviation
-            # (voxel dev 1.5e-05, objective shift 0.0015 % — far inside
-            # the 0.1 % parity band). NSOL_TPU_EXACT=1 restores the
-            # HIGHEST-precision kernel (bit-class parity with the XLA
-            # path).
-            exact = bool(os.environ.get("NSOL_TPU_EXACT"))
-            # round 5: compact_dirs covers the robust IRLS kernel too
-            # (bf16-exact inner-CG directions -> high2 first-pass blur
-            # matmuls + exact1 Laplacian; interpret-mode parity 7e-7)
-            fast_kw = ({} if exact
-                       else {"precision": "high3", "compact_dirs": True})
-            fused_admm = _fused.make_fused_admm_solver(
-                observed_nda.shape, cov, spacing=spacing,
-                iterations=args.iterations, iter_max=args.iter_max,
-                data_loss=args.data_loss,
-                irls_cg_iters=args.irls_cg_iters, interpret=interp,
-                **fast_kw)
-            fused_jit = jit_closed(
-                lambda x0, a: fused_admm(bj, x0, a, rho0, dls0),
-                (bj, a0))
-        elif (on_accel and dimension == 3 and args.data_loss != "linear"
-                and args.minimizer == "irls"):
-            # Past-VMEM 3-D ROBUST deconvolution (round 5): the streaming
-            # blocked IRLS path — one-pass weighted normal applies
-            # (ops/pallas/robust.py), the last problem-class × scale cell
-            # with a TPU-first path (VERDICT r4 item 1).
-            try:
-                from nsol_tpu.ops.pallas.robust import (
-                    blocked_robust_admm_solve,
-                )
-
-                rsolve = blocked_robust_admm_solve(
-                    observed_nda.shape, cov, spacing=spacing,
-                    iterations=args.iterations, iter_max=args.iter_max,
-                    irls_cg_iters=args.irls_cg_iters,
-                    data_loss=args.data_loss, interpret=interp,
-                    # compact robust directions default on (round 5);
-                    # NSOL_TPU_EXACT=1 restores the all-f32 kernels
-                    compact_dirs=not os.environ.get("NSOL_TPU_EXACT"))
-                fused_jit = jit_closed(
-                    lambda x0, a: rsolve(bj, x0, a, rho0,
-                                         data_loss_scale=dls0),
-                    (bj, a0))
-            except ValueError:
-                fused_jit = None
-        elif (on_accel and dimension == 3 and args.data_loss == "linear"
-                and args.minimizer == "cg"):
-            # Past-VMEM 3-D volumes: the fully streaming z-blocked solve
-            # (double-buffered halo DMA, every CG iteration = one Pallas
-            # pass + one XLA fusion) — 35.2 vs 29.9 it/s at 256³ on the
-            # matmul path (BASELINE.md, 2026-08-21). Falls back to the
-            # default solver path for non-separable blurs or volumes whose
-            # leading axis doesn't split into z-blocks.
-            try:
-                from nsol_tpu.ops.pallas.blocked import blocked_admm_solve
-
-                # Compact-state policy (round 5): compact_dirs is the
-                # DEFAULT — r/x/reductions/r0 stay f32, only the CG
-                # directions round to bf16; objective IDENTICAL to the
-                # f32 path, voxel dev 2e-4-class, 256³ 46→52.7 and 512³
-                # 4.8→5.8 it/s (measured 2026-08-21). NSOL_TPU_COMPACT=1
-                # opts into the faster FULL-compact state (57.0 / 6.1
-                # it/s, 0.06% objective drift, ~1% voxel dev on TV flat
-                # directions); NSOL_TPU_EXACT=1 restores pure f32.
-                sd = (jnp.bfloat16 if os.environ.get("NSOL_TPU_COMPACT")
-                      else None)
-                cd = (sd is None
-                      and not os.environ.get("NSOL_TPU_EXACT"))
-                blocked = blocked_admm_solve(
-                    observed_nda.shape, cov, spacing=spacing,
-                    iterations=args.iterations, iter_max=args.iter_max,
-                    interpret=interp, state_dtype=sd, compact_dirs=cd)
-                fused_jit = jit_closed(
-                    lambda x0, a: blocked(bj, x0, a, rho0), (bj, a0))
-            except ValueError:
-                fused_jit = None
-
     # --trace DIR: capture a jax.profiler device trace of the whole
     # reconstruction loop (SURVEY §5 tracing/profiling; profiling.py)
     import contextlib
@@ -227,28 +119,6 @@ def main():
 
     tracer = (profiling.trace(args.trace) if args.trace
               else contextlib.nullcontext())
-
-    if fused_jit is not None:
-        recons = []
-        with tracer:
-            for i, alpha in enumerate(alphas):
-                import jax.numpy as jnp
-
-                ph.print_subtitle("Iteration %d/%d" % (i + 1, len(alphas)))
-                tm = ph.start_timing()
-                bj = jnp.asarray(b / x_scale, jnp.float32)
-                recon = np.asarray(
-                    fused_jit(bj, jnp.asarray(float(alpha), bj.dtype)))
-                recon = recon * x_scale
-                recons.append(recon)
-                print("\nComputational time %s: %s"
-                      % (args.reconstruction_type, ph.stop_timing(tm)))
-                if args.result is not None:
-                    DataWriter(recon, args.result,
-                               data_reader.get_image_nifti()).write_data()
-        if args.verbose and args.dir_output_figures is not None:
-            _save_figures(args, observed_nda, recons, alphas, [], {})
-        return 0
 
     solver_interface = DeconvolutionSolverStudyInterface(
         A=A, A_adj=A_adj, D=grad_op, D_adj=grad_adj, b=b, x0=x0,

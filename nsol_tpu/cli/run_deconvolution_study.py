@@ -13,7 +13,7 @@ from nsol_tpu.ops import grad as G
 
 
 def main():
-    from nsol_tpu.cli import setup_compile_cache
+    from nsol_tpu.jitutil import setup_compile_cache
 
     setup_compile_cache()
     input_parser = InputArgparser(

@@ -1,7 +1,7 @@
 """Run TVL1/TVL2/HuberL1/HuberL2 denoising.
 
 CLI-parity port of the reference app (nsol/application/run_denoising.py:33-250)
-on the TPU-native stack: shaped arrays (no flattening closures), the scanned
+on shaped arrays (no flattening closures), the scanned
 primal-dual solver, and in-graph similarity measures. The reference's
 hardcoded ``L2=8`` (even for 3-D volumes — a preserved quirk, see
 nsol/application/run_denoising.py:147) is kept as the default.
@@ -22,8 +22,9 @@ from nsol_tpu.ops import measures as sim
 from nsol_tpu.solvers.wrappers import PrimalDualSolver, ADMMLinearSolver
 
 
-def main():
-    from nsol_tpu.cli import setup_compile_cache
+def main(argv=None):
+    """Run the CLI on ``argv`` (default: ``sys.argv[1:]``)."""
+    from nsol_tpu.jitutil import setup_compile_cache
 
     setup_compile_cache()
     input_parser = InputArgparser(
@@ -40,7 +41,7 @@ def main():
     input_parser.add_dir_output_figures(default=None)
     input_parser.add_verbose(default=0)
     input_parser.add_trace(default=None)
-    args = input_parser.parse_args()
+    args = input_parser.parse_args(argv)
     input_parser.print_arguments(args)
 
     alphas = np.atleast_1d(args.alpha)
@@ -77,36 +78,6 @@ def main():
     prox_g_conj = (prox_ops.prox_tv_conj if rtype.startswith("TV")
                    else prox_ops.prox_huber_conj)
 
-    # Fused whole-solve Pallas path: on a TPU backend, when no observer
-    # trajectory is requested and the image fits VMEM, the entire PD solve
-    # runs as ONE Mosaic program (alpha stays a runtime scalar, so the
-    # multi-alpha loop reuses one compiled kernel). Parity vs the XLA path
-    # is pinned in tests/test_pallas.py; speed in BASELINE.md.
-    fused_jit = None
-    if args.solver == "PD" and x_ref is None:
-        import jax
-        from nsol_tpu.jitutil import jit_closed
-        from nsol_tpu.ops.pallas import fused as _fused
-
-        # NSOL_TPU_FUSED_INTERPRET=1 forces the fused path in Pallas
-        # interpreter mode — lets CPU CI exercise this wiring.
-        interp = bool(os.environ.get("NSOL_TPU_FUSED_INTERPRET"))
-        if ((interp or jax.default_backend() != "cpu")
-                and dimension in (2, 3)
-                and _fused.fused_pd_fits_vmem(observed_nda.shape)):
-            # NSOL_TPU_COMPACT=1: bf16-state kernel (+33 % throughput,
-            # bf16-rounding-class iterate deviation — opt-in only)
-            fused_pd = _fused.make_fused_pd_denoise_solver(
-                observed_nda.shape, rtype, alg_type="ALG2",
-                iterations=args.iterations, dtype=bj.dtype,
-                compact=(not interp)
-                and bool(os.environ.get("NSOL_TPU_COMPACT")),
-                interpret=interp)
-            L2 = jnp.asarray(8.0, bj.dtype)  # same quirk as below
-            a0 = jnp.asarray(float(alphas[0]), bj.dtype)
-            fused_jit = jit_closed(
-                lambda x0, a: fused_pd(bj, x0, a, L2), (bj, a0))
-
     # --trace DIR: capture a jax.profiler device trace of the whole
     # reconstruction loop (SURVEY §5 tracing/profiling; profiling.py)
     import contextlib
@@ -120,20 +91,6 @@ def main():
     observers = []
     with tracer:
         for alpha in alphas:
-            if fused_jit is not None:
-                tm = ph.start_timing()
-                recon = np.asarray(
-                    fused_jit(bj, jnp.asarray(float(alpha), bj.dtype)))
-                recon = recon * x_scale
-                observers.append(None)
-                recons.append(recon)
-                if args.verbose:
-                    ph.print_info("Required computational time: %s"
-                                  % ph.stop_timing(tm))
-                if args.result is not None:
-                    DataWriter(recon, args.result,
-                               data_reader.get_image_nifti()).write_data()
-                continue
             if args.solver == "PD":
                 solver = PrimalDualSolver(
                     prox_f=prox_f, prox_g_conj=prox_g_conj,

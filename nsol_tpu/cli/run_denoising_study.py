@@ -24,7 +24,7 @@ from nsol_tpu.study import PrimalDualSolverParameterStudy
 
 
 def main():
-    from nsol_tpu.cli import setup_compile_cache
+    from nsol_tpu.jitutil import setup_compile_cache
 
     setup_compile_cache()
     input_parser = InputArgparser(description="Run denoising algorithm study")
@@ -70,15 +70,10 @@ def main():
     prox_g_conj = (prox_ops.prox_tv_conj if rtype.startswith("TV")
                    else prox_ops.prox_huber_conj)
 
-    # reconstruction_type/observation hints let run_sweep route alpha
-    # sweeps through the fused whole-solve Pallas kernel on TPU
-    # (solvers/wrappers.py::_fused_sweep); the prox closures remain the
-    # authoritative fallback for everything else.
     solver = PrimalDualSolver(
         prox_f=prox_f, prox_g_conj=prox_g_conj, B=grad_op,
         B_conj=grad_adj, L2=8, x0=np.array(observed_nda),
-        iterations=args.iterations, x_scale=x_scale, verbose=args.verbose,
-        reconstruction_type=rtype, observation=bj)
+        iterations=args.iterations, x_scale=x_scale, verbose=args.verbose)
 
     # --------------------------- Measures dict -----------------------------
     measures_dic = {}

@@ -1,14 +1,14 @@
 """Benchmark/test input resolution — standalone data story.
 
 The reference bundles a ``data/`` directory of benchmark inputs (8 PNGs +
-a Shepp-Logan 64-cubed nii.gz) that its tests and the recorded BASELINE.md
-numbers use. This repo does not vendor those exact images; instead every
+a Shepp-Logan 64-cubed nii.gz) that its tests and the recorded float64
+objectives (bench.py) use. This repo does not vendor those exact images; instead every
 consumer resolves inputs through :func:`data_dir`/:func:`path`, which pick
 the first available source:
 
 1. ``$NSOL_TPU_DATA_DIR`` — explicit override;
 2. ``/root/reference/data`` — the reference checkout, when present, so
-   all recorded objectives in BASELINE.md stay byte-reproducible;
+   all recorded objectives stay byte-reproducible;
 3. a deterministic generated stand-in set under
    ``<repo>/.generated_data`` — an analytic 3-D Shepp-Logan phantom
    (classic ten-ellipsoid spec, Kak & Slaney Table 3.1 extended to 3-D as
@@ -48,7 +48,7 @@ _FILES = (
 #: nii.gz — file bytes can vary across PIL/gzip versions, decoded
 #: content must not). Generation verifies against these so the
 #: standalone benchmark inputs are byte-stable across checkouts and
-#: library upgrades (VERDICT r3 item 7); a mismatch means the generator
+#: library upgrades; a mismatch means the generator
 #: pipeline (numpy RandomState / scipy.ndimage) drifted and the
 #: recorded standalone objectives no longer anchor.
 _CONTENT_SHA256 = {
@@ -206,8 +206,6 @@ def _corrupt(img, blur_sigma=None, noise_level=0.05, seed=1):
 def generate_standalone_data(directory):
     """Write the full stand-in input set into ``directory`` (idempotent —
     files already present are kept)."""
-    from PIL import Image
-
     from nsol_tpu.io.nifti import write_nifti
 
     os.makedirs(directory, exist_ok=True)
@@ -218,6 +216,8 @@ def generate_standalone_data(directory):
 
     def save_png(name, arr):
         if name in missing:
+            from PIL import Image
+
             Image.fromarray(np.round(arr).astype(np.uint8)).save(
                 os.path.join(directory, name))
 

@@ -1,9 +1,9 @@
 """Global constants and dtype policy.
 
 Mirrors the role of the reference's ``nsol/definitions.py`` (EPS=1e-10, study
-file extension, allowed I/O extensions, noise types) while adding the TPU
-dtype policy: the library computes in the dtype of its inputs, defaulting to
-float32 on TPU; tests run on CPU with ``jax_enable_x64`` for the 1e-10
+file extension, allowed I/O extensions, noise types) while adding the
+accelerator dtype policy: the library computes in the dtype of its inputs,
+defaulting to float32 on the accelerator; tests run on CPU with ``jax_enable_x64`` for the 1e-10
 adjointness tolerances of the reference test-suite
 (reference: nsol/definitions.py:6-17, tests/kernels_test.py:22).
 """
@@ -27,7 +27,7 @@ def default_dtype():
     """Return the library default floating dtype.
 
     float64 when JAX x64 mode is enabled (CPU test configuration), float32
-    otherwise (TPU production configuration).
+    otherwise (accelerator production configuration).
     """
     import jax
 

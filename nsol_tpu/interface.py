@@ -53,8 +53,7 @@ class DeconvolutionSolverStudyInterface(object):
         self._A = A
         self._A_adj = A_adj
         # optional separable-blur hint (covariance + voxel spacing):
-        # lets the ADMM solver's run_sweep route whole parameter grids
-        # through the fused VMEM whole-solve Pallas kernel
+        # lets the ADMM solver build its fused normal operators itself
         self._blur_cov = blur_cov
         self._spacing = spacing
         # Fused normal operators (A^T A, B^T B) enabling the

@@ -4,7 +4,7 @@ API-parity port of the reference Observer (nsol/observer.py:18-161): records
 the iterate trajectory via ``add_x``, evaluates a dict of measures lazily
 over the whole trajectory, and stores the solver's wall-clock time.
 
-TPU-native difference: solvers normally record scalar measures *in-graph*
+Difference: solvers normally record scalar measures *in-graph*
 during the scanned loop and hand the stacked arrays to
 ``set_precomputed_measures`` — the host-side trajectory copy (an O(n)
 device→host transfer per iteration in the reference) is opt-in via the
@@ -75,7 +75,7 @@ class Observer(object):
     def get_measures_results(self):
         return self.compute_measures()
 
-    # -- TPU-native extension ---------------------------------------------
+    # -- in-graph measures extension---------------------------------------
 
     def set_precomputed_measures(self, results):
         """Install measure arrays computed in-graph by a scanned solver.

@@ -1,4 +1,4 @@
-"""TPU-native operator layer: stencils, convolutions, losses, proxes, priors,
+"""Operator layer: stencils, convolutions, losses, proxes, priors,
 similarity measures. Replaces the reference layers L0–L2
 (nsol/kernels.py, nsol/linear_operators.py, nsol/loss_functions.py,
 nsol/proximal_operators.py, nsol/prior_measures.py,

@@ -1,10 +1,10 @@
 """Convolution operators: Gaussian blur A/Aᵀ and general stencils.
 
-TPU-first design. The reference applies blur via ``scipy.ndimage.convolve``
-with ``mode="wrap"`` (nsol/linear_operators.py:60-68). Circular (wrap)
-boundary conditions make the operator exactly diagonal in Fourier space, so
-on TPU the preferred implementation is an FFT product — O(n log n), exact
-adjoint, and a single fused XLA computation. For small kernels a direct
+The reference applies blur via ``scipy.ndimage.convolve`` with
+``mode="wrap"`` (nsol/linear_operators.py:60-68). Circular (wrap) boundary
+conditions make the operator exactly diagonal in Fourier space, so one
+implementation is an FFT product — O(n log n), exact adjoint, and a single
+fused XLA computation. For small kernels a direct
 (separable, when the covariance is diagonal) ``lax.conv_general_dilated``
 path is provided; benchmarking picks the winner per problem size.
 
@@ -65,6 +65,7 @@ def convolve(x, kernel, mode="wrap", prepadded_axes=()):
     out = lax.conv_general_dilated(
         lhs, rhs, window_strides=(1,) * x.ndim, padding="VALID",
         dimension_numbers=dn,
+        precision=lax.Precision.HIGHEST,
         preferred_element_type=x.dtype,
     )
     return out[0, 0]
@@ -106,7 +107,7 @@ def fft_convolve_fn(kernel, shape, dtype=None):
         dtype = kernel.dtype
 
     # For symmetric kernels the spectrum is real; dropping the ~0 imaginary
-    # part keeps the multiply real-typed (cheaper on TPU).
+    # part keeps the multiply real-typed (half the bytes and flops).
     if np.abs(khat.imag).max() < 1e-12 * max(1.0, np.abs(khat.real).max()):
         khat = khat.real
     khat = jnp.asarray(khat, dtype=jnp.complex128 if np.iscomplexobj(khat)
@@ -149,8 +150,8 @@ def separable_factors(kernel, tol=1e-12):
 
 def separable_convolve_fn(factors):
     """Jittable circular (wrap) convolution by per-axis 1-D factors via
-    roll-accumulate — one VPU pass per tap, no FFT, no im2col. ~8× faster
-    than the FFT product at 64³ on TPU v5e (measured 2026-08-17)."""
+    roll-accumulate — shifted multiply-adds that XLA fuses into one
+    elementwise pass per axis; no FFT, no im2col."""
     taps = [np.asarray(f) for f in factors]
 
     def apply(x):
@@ -187,7 +188,9 @@ def make_normal_blur_operator(cov, alpha_cut=3, spacing=None, shape=None,
     factors = separable_factors(kernel64)
     if factors is not None:
         if shape is not None and len(shape) > 1:
-            # MXU path: per-axis circulant matmuls (fastest on TPU)
+            # per-axis circulant matmuls; whether the matmul, separable or
+            # FFT form is fastest on the GPU at each shape awaits
+            # measurement (chip_smoke.py prints all three)
             from nsol_tpu.ops.matmul_ops import \
                 make_matmul_normal_blur_operator
 
@@ -222,12 +225,12 @@ def make_blur_operators(cov, alpha_cut=3, spacing=None, shape=None,
     symmetric under per-axis flips, so ``A_adj = A`` — same as the reference's
     ``kernel_adj = kernel`` (nsol/linear_operators.py:63).
 
-    method: "matmul" (per-axis circulant matmuls on the MXU; diagonal
-    covariance + static shape — fastest on TPU), "separable" (per-axis
-    roll-accumulate on the VPU; shape-polymorphic), "fft" (circular
-    spectrum product; requires ``shape``), "direct" (lax conv with wrap
-    padding), or "auto" (matmul → separable → fft → direct by
-    availability).
+    method: "matmul" (per-axis circulant matmuls at HIGHEST precision;
+    diagonal covariance + static shape), "separable" (per-axis
+    roll-accumulate; shape-polymorphic), "fft" (circular spectrum
+    product; requires ``shape``), "direct" (lax conv with wrap padding),
+    or "auto" (matmul → separable → fft → direct by availability; which
+    form is fastest on the GPU at each shape awaits measurement).
     """
     from nsol_tpu.ops.kernels import gaussian_kernel
 

@@ -1,9 +1,9 @@
 """Finite-difference gradient/divergence operators on shaped arrays.
 
-TPU-first design: instead of the reference's flattened 1-D arrays convolved by
+Instead of the reference's flattened 1-D arrays convolved by
 ``scipy.ndimage`` (nsol/linear_operators.py:98-169), arrays stay shaped and
 the 2-point stencils are expressed as shifted-slice subtractions which XLA
-fuses into single VPU passes. The gradient returns a stacked ``(d, *shape)``
+fuses into single elementwise passes. The gradient returns a stacked ``(d, *shape)``
 array (component order x, y[, z] — i.e. last array axis first), matching the
 reference's ``concat(Dx, Dy, Dz)`` stacking semantics
 (nsol/linear_operators.py:121-144) without the axis-0 concatenation quirk.

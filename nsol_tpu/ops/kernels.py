@@ -1,8 +1,9 @@
 """Host-side stencil construction: Gaussian blur kernels and finite differences.
 
 Kernel *construction* is tiny host-side setup work and stays in NumPy; kernel
-*application* is the TPU hot path and lives in :mod:`nsol_tpu.ops.conv` /
-:mod:`nsol_tpu.ops.grad` (XLA conv / FFT / Pallas).
+*application* is the accelerator hot path and lives in
+:mod:`nsol_tpu.ops.conv` / :mod:`nsol_tpu.ops.grad` (XLA conv / FFT /
+matmul).
 
 Conventions reproduced from the reference (nsol/kernels.py):
 

@@ -1,22 +1,15 @@
-"""MXU-path operators: separable convolutions as per-axis matmuls.
+"""Matmul-form operators: separable convolutions as per-axis matmuls.
 
-The VPU roll-accumulate path applies a 13-tap separable normal kernel as
-~taps×axes shifted adds — all vector-unit work while the 128×128 MXU sits
-idle. A circular convolution along one axis is exactly a multiplication by
-an (n × n) circulant matrix, and the zero-boundary ``DᵀD`` Laplacian is a
-tridiagonal matrix — so the whole separable operator chain becomes 3 small
-matmuls per apply, which the MXU executes in microseconds and XLA fuses
-with the surrounding CG elementwise work. Matrices are built host-side
-(tiny) and hoisted to runtime arguments by ``jit_closed``.
+A circular convolution along one axis is exactly a multiplication by an
+(n × n) circulant matrix, and the zero-boundary ``DᵀD`` Laplacian is a
+tridiagonal matrix — so the whole separable operator chain becomes one
+small matmul per axis per apply. Matrices are built host-side (tiny) and
+hoisted to runtime arguments by ``jit_closed``.
 
-``precision`` defaults to HIGHEST — true-f32 operands via the multi-pass
-bf16 decomposition on the MXU. Measured on the north-star bench
-(BASELINE.md "MXU precision ladder", 2026-08-20): DEFAULT (single-pass
-bf16 inputs) is +55 % throughput but the CG loses ~8 mantissa bits per
-operator apply and the converged ADMM objective lands 3.4 % off — fails
-the parity criterion. HIGH (3-pass) is +38 % and stays in the same 0.1 %
-objective band as HIGHEST — a valid knob when ultimate f32 parity is not
-required. The default stays HIGHEST; callers opt in deliberately.
+``precision`` defaults to HIGHEST: true-f32 products. A lower precision
+(bf16 or TF32 operands) loses mantissa bits on every operator apply, and
+the normal-equation CG amplifies that loss into a converged objective
+that fails the parity gate against the float64 reference.
 """
 
 import numpy as np
@@ -99,7 +92,7 @@ def matmul_gradient_normal_fn(shape, spacing=None, dtype=np.float32,
 
 def make_matmul_blur_operators(cov, alpha_cut=3, spacing=None, shape=None,
                                dtype=np.float32):
-    """Gaussian blur pair ``(A, A_adj)`` on the MXU path (diagonal
+    """Gaussian blur pair ``(A, A_adj)`` as per-axis matmuls (diagonal
     covariance only)."""
     from nsol_tpu.ops.kernels import gaussian_kernel
     from nsol_tpu.ops.conv import separable_factors
@@ -118,7 +111,7 @@ def make_matmul_blur_operators(cov, alpha_cut=3, spacing=None, shape=None,
 
 def make_matmul_normal_blur_operator(cov, alpha_cut=3, spacing=None,
                                      shape=None, dtype=np.float32):
-    """``AᵀA`` on the MXU path: per-axis circulant matmuls with the
+    """``AᵀA`` as per-axis circulant matmuls with the
     self-correlated factors."""
     from nsol_tpu.ops.kernels import gaussian_kernel
     from nsol_tpu.ops.conv import separable_factors

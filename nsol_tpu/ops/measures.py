@@ -75,7 +75,8 @@ def _uniform_filter(x, win):
         lhs.shape, rhs.shape, ("NC" + sp, "OI" + sp, "NC" + sp))
     out = lax.conv_general_dilated(
         lhs, rhs, window_strides=(1,) * x.ndim, padding="VALID",
-        dimension_numbers=dn, preferred_element_type=x.dtype)
+        dimension_numbers=dn, precision=lax.Precision.HIGHEST,
+        preferred_element_type=x.dtype)
     return out[0, 0]
 
 

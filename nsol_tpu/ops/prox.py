@@ -1,6 +1,6 @@
 """Proximal operators as fused elementwise jit functions.
 
-Closed-form proxes become single fused VPU passes under jit. The iterative
+Closed-form proxes become single fused elementwise passes under jit. The iterative
 ``prox_linear_least_squares`` (inner quadratic solve) lives in
 :mod:`nsol_tpu.solvers.tikhonov`, mirroring the reference's layering where
 ``proximal_operators.py`` reaches up into the Tikhonov solver

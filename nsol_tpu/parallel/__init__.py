@@ -1,6 +1,6 @@
 """Distribution layer: device meshes, halo-exchange stencils, psum-reduced
 solvers (the reference has no parallelism — SURVEY.md §2; this layer is the
-TPU-native scale-out designed in SURVEY.md §5)."""
+scale-out designed in SURVEY.md §5)."""
 
 from nsol_tpu.parallel.halo import (
     exchange_plane_up, exchange_plane_down, exchange_halo_wrap,

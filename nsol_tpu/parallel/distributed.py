@@ -1,7 +1,7 @@
 """Multi-host (multi-process) execution plumbing.
 
 The reference has no distribution of any kind (SURVEY.md §2: no MPI/NCCL/
-Gloo imports anywhere); this module is the TPU-native capability mandated
+Gloo imports anywhere); this module is the capability mandated
 by BASELINE config 5 ("sharded 512³ TV-deconvolution ... across N≥2 hosts
 with psum-reduced CG"). Three pieces:
 
@@ -26,9 +26,8 @@ real N-host launch uses.
 Launch recipe for a real N-host slice (each host runs the same script)::
 
     from nsol_tpu.parallel import distributed as dist
-    dist.initialize()            # env-configured on TPU pods; or pass
-                                 # coordinator_address/num_processes/
-                                 # process_id explicitly elsewhere
+    dist.initialize(coordinator_address="host0:1234",
+                    num_processes=N, process_id=i)
     mesh = make_space_mesh()     # all devices across all hosts
     rows = dist.process_local_slice(GLOBAL_SHAPE, mesh)
     b_local = read_my_rows(path, rows)          # process-local I/O
@@ -52,9 +51,9 @@ def initialize(coordinator_address=None, num_processes=None,
     """Join the multi-process runtime; safe no-op when single-process.
 
     With no arguments, relies on the environment-based cluster detection
-    `jax.distributed.initialize` performs on TPU pods (each worker learns
-    its coordinator and process id from the TPU metadata). Explicit
-    arguments cover non-TPU launches. Calling this on an
+    of `jax.distributed.initialize` (e.g. under a cluster scheduler that
+    JAX recognises); elsewhere pass the coordinator address, process
+    count and process id explicitly. Calling this on an
     already-initialized or genuinely single-process setup is harmless.
     """
     if num_processes == 1 and coordinator_address is None:

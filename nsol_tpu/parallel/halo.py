@@ -1,13 +1,13 @@
 """Halo exchange and sharded stencil operators over a device mesh.
 
 The reference has no distribution of any kind (SURVEY.md §2: single-process
-numpy); the TPU-native scale-out for this problem class is *spatial domain
+numpy); the scale-out for this problem class is *spatial domain
 decomposition*: a (z, y, x) volume is sharded along its leading array axis
 over a 1-D mesh axis, the 2-point finite-difference stencil exchanges a
 1-plane ghost zone, the Gaussian blur stencil exchanges its half-width, and
 all CG/solver inner products are ``psum``-reduced (SURVEY.md §5
-"long-context analogue"). Collectives ride ``lax.ppermute`` so XLA maps them
-onto ICI neighbor links rather than all-to-alls.
+"long-context analogue"). Collectives ride ``lax.ppermute`` (neighbor
+exchanges) rather than all-to-alls.
 
 All functions here run *inside* ``shard_map``: they see the local block and
 communicate explicitly. Zero-boundary semantics for the derivative stencils
@@ -64,8 +64,7 @@ def exchange_halo_wrap(x, axis_name, n_shards, lo, hi, axis=0):
 
     Supports halo widths exceeding the local extent via multi-hop ring
     permutes (hop ``h`` contributes the relevant slice of the block ``h``
-    ranks away); each hop is a neighbor-distance-``h`` ``ppermute`` which
-    XLA lowers to ICI ring traffic.
+    ranks away); each hop is a neighbor-distance-``h`` ``ppermute``.
     """
     local = x.shape[axis]
     parts_lo = []

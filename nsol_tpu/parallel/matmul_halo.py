@@ -1,10 +1,9 @@
-"""MXU-path sharded operators: halo exchange + banded/circulant matmuls.
+"""Matmul-form sharded operators: halo exchange + banded/circulant matmuls.
 
 Composes the two independent optimizations of this build:
 
-* the single-chip MXU path (nsol_tpu/ops/matmul_ops.py) — separable stencils
-  as per-axis circulant/tridiagonal matmuls so the systolic array, not the
-  VPU, does the stencil arithmetic;
+* the single-device matmul path (nsol_tpu/ops/matmul_ops.py) — separable
+  stencils as per-axis circulant/tridiagonal matmuls;
 * the distribution layer (nsol_tpu/parallel/halo.py) — spatial domain
   decomposition along array axis 0 with ppermute halo exchange.
 
@@ -20,7 +19,7 @@ by ``lax.axis_index``).
 
 The reference has no distribution anywhere (SURVEY.md §2); these operators
 realize BASELINE config 5's "sharded 512³ TV-deconvolution with psum-reduced
-CG" at the single-chip path's MXU throughput.
+CG" on the same matmul operators as the single-device path.
 
 All functions here run *inside* ``shard_map``.
 """
@@ -59,7 +58,7 @@ def band_matrix(taps, local, dtype=np.float32):
 
 
 def _apply_band_axis0(xp, Band):
-    """y = Band @ xp along axis 0 of the halo-padded block (MXU matmul)."""
+    """y = Band @ xp along axis 0 of the halo-padded block (matmul)."""
     return jnp.tensordot(Band, xp, axes=([1], [0]),
                          precision=lax.Precision.HIGHEST)
 
@@ -99,7 +98,7 @@ def _make_sharded_separable_apply(factors, local_shape, axis_name, n_shards,
 def make_sharded_matmul_blur_operators(cov, alpha_cut=3, spacing=None,
                                        local_shape=None, axis_name="space",
                                        n_shards=1, dtype=np.float32):
-    """Gaussian blur pair ``(A, A_adj)`` on the sharded MXU path (diagonal
+    """Gaussian blur pair ``(A, A_adj)`` on the sharded matmul path (diagonal
     covariance only; the Gaussian stencil is flip-symmetric so A_adj = A)."""
     factors = _blur_factors(cov, alpha_cut, spacing)
     if factors is None:
@@ -116,7 +115,7 @@ def make_sharded_matmul_normal_blur_operator(cov, alpha_cut=3, spacing=None,
                                              local_shape=None,
                                              axis_name="space", n_shards=1,
                                              dtype=np.float32):
-    """``AᵀA`` on the sharded MXU path: one separable pass with the
+    """``AᵀA`` on the sharded matmul path: one separable pass with the
     self-correlated per-axis factors (see
     :func:`nsol_tpu.ops.conv.make_normal_blur_operator`)."""
     factors = _blur_factors(cov, alpha_cut, spacing)
@@ -133,7 +132,7 @@ def make_sharded_matmul_normal_blur_operator(cov, alpha_cut=3, spacing=None,
 def make_sharded_matmul_gradient_normal(local_shape, spacing=None,
                                         axis_name="space", n_shards=1,
                                         dtype=np.float32):
-    """``DᵀD`` on the sharded MXU path, matching
+    """``DᵀD`` on the sharded matmul path, matching
     :func:`nsol_tpu.ops.grad.gradient_normal` on the assembled global array.
 
     Local axes get the exact per-axis tridiagonal matrices of

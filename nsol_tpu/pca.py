@@ -1,6 +1,6 @@
 """Principal component analysis and robust-PCA variants.
 
-TPU-native re-expression of the reference module
+JAX re-expression of the reference module
 (nsol/principal_component_analysis.py:28-426):
 
 * :class:`PrincipalComponentAnalysis` — eigendecomposition of the point
@@ -119,7 +119,8 @@ def _soft_shrink(M, tau):
 
 def _svd_shrink(M, tau):
     U, S, Vt = jnp.linalg.svd(M, full_matrices=False)
-    return (U * _soft_shrink(S, tau)[jnp.newaxis, :]) @ Vt
+    return jnp.matmul(U * _soft_shrink(S, tau)[jnp.newaxis, :], Vt,
+                      precision=lax.Precision.HIGHEST)
 
 
 class AlmRobustPrincipalComponentAnalysis(object):

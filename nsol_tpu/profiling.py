@@ -1,7 +1,7 @@
 """Tracing / profiling hooks.
 
 The reference's only instrumentation is wall-clock timing around
-``Solver._run`` (nsol/solver.py:152-166). The TPU-native replacement adds
+``Solver._run`` (nsol/solver.py:152-166). This module adds
 device-level tracing via ``jax.profiler`` (SURVEY.md §5 "Tracing /
 profiling"): wrap any solve in :func:`trace` to capture an XLA trace
 viewable in TensorBoard/Perfetto, or use :func:`annotate` to mark solver

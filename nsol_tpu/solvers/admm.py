@@ -35,8 +35,7 @@ def admm_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha, rho,
                data_loss_scale=1.0, minimizer="lsmr",
                inner_bounds=(0.0, np.inf), record_fn=None,
                record_trajectory=False, axis_name=None,
-               normal_A=None, normal_B=None, irls_cg_iters=8,
-               normal_M=None, normal_W=None, grad_W=None):
+               normal_A=None, normal_B=None, irls_cg_iters=8):
     """Run ``iterations`` ADMM steps from ``x0``. Pure; callers jit.
 
     ``alpha`` (TV weight) and ``rho`` (augmented-Lagrangian weight) may be
@@ -67,8 +66,7 @@ def admm_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha, rho,
             data_loss=data_loss, data_loss_scale=data_loss_scale,
             minimizer=minimizer, iter_max=iter_max, bounds=inner_bounds,
             axis_name=axis_name, normal_A=normal_A, normal_B=normal_B,
-            At_b=At_b, irls_cg_iters=irls_cg_iters, normal_M=normal_M,
-            normal_W=normal_W, grad_W=grad_W)
+            At_b=At_b, irls_cg_iters=irls_cg_iters)
         t = B(x) + w - b_reg
         v = vectorial_soft_threshold(t, alpha / rho)
         w = t - v

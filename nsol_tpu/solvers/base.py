@@ -28,7 +28,7 @@ class Solver(object):
     def __init__(self, x0, x_scale=1.0, verbose=0):
         self._x_scale = float(x_scale)
         # Library compute dtype: float64 under x64 (CPU tests), float32 on
-        # TPU — the reference is float64-only (nsol/solver.py:37).
+        # the accelerator — the reference is float64-only (nsol/solver.py:37).
         self._dtype = default_dtype()
         self._x0 = np.asarray(x0, dtype=self._dtype) / self._x_scale
         self._x = np.array(self._x0)
@@ -70,7 +70,7 @@ class Solver(object):
 
     def set_record_trajectory(self, flag):
         """Opt into materializing the full iterate trajectory in the
-        observer (memory-hostile on TPU; off by default)."""
+        observer (memory-hostile on the accelerator; off by default)."""
         self._record_trajectory = bool(flag)
 
     def run(self):

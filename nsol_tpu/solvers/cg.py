@@ -1,4 +1,4 @@
-"""Matrix-free CGLS: the TPU replacement for scipy.sparse.linalg.lsmr.
+"""Matrix-free CGLS: the jittable replacement for scipy.sparse.linalg.lsmr.
 
 The reference solves its Tikhonov subproblem with lsmr on the augmented
 rectangular system ``[A; √α·B] x = [b; √α·b_reg]`` with ``atol=btol=0`` so it
@@ -6,9 +6,9 @@ always runs exactly ``iter_max`` Krylov iterations
 (nsol/tikhonov_linear_solver.py:146-158). We replace lsmr (Golub–Kahan) with
 CGLS — CG on the normal equations applied in factored form, which never forms
 ``AᵀA``, has the same per-iteration cost (one ``A`` + one ``Aᵀ`` apply), and
-is a fixed-trip-count ``lax.scan`` that XLA unrolls onto the MXU/VPU without
-host synchronization. Parity with the reference is defined on the converged
-objective (BASELINE.md), not iterate-by-iterate equality.
+is a fixed-trip-count ``lax.scan`` that XLA compiles without host
+synchronization. Parity with the reference is defined on the converged
+objective (bench.py's parity gate), not iterate-by-iterate equality.
 
 Distribution: the operator outputs may be pytrees (e.g. the augmented
 ``(data, reg)`` pair), and all inner products run through ``tree_vdot``

@@ -2,12 +2,12 @@
 
 The reference escapes to ``scipy.optimize.minimize(method="L-BFGS-B")`` with
 box bounds and analytic cost/gradient for non-linear data losses
-(nsol/tikhonov_linear_solver.py:197-220). On TPU that host round-trip would
+(nsol/tikhonov_linear_solver.py:197-220). On an accelerator that host round-trip would
 dominate, so this is a from-scratch limited-memory BFGS with projection onto
 the box and an Armijo backtracking line search — all fixed-trip-count
 ``lax.scan``/``lax.while_loop`` so the entire optimization compiles into one
-XLA program. Parity with L-BFGS-B is defined on the converged objective
-(BASELINE.md), not on iterate trajectories.
+XLA program. Parity with L-BFGS-B is defined on the converged objective,
+not on iterate trajectories.
 """
 
 import jax

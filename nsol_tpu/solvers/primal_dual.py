@@ -14,7 +14,7 @@ operator pair ``B/Bᵀ`` and its squared norm ``L2``
 with ``λ = 1/α`` (reference :222) and the primal prox always invoked with
 step ``τ·λ`` (reference :246).
 
-TPU-first differences from the reference: the iteration is a single scanned
+Differences from the reference: the iteration is a single scanned
 XLA program (one compile, no per-iteration host dispatch); the observer's
 per-iteration trajectory copy (nsol/primal_dual_solver.py:260-261 — an O(n)
 host copy per iteration) becomes an in-graph ``record_fn`` carry that
@@ -50,7 +50,7 @@ def primal_dual_solve(prox_f, prox_g_conj, B, B_adj, x0, alpha, L2,
         reference: nsol/primal_dual_solver.py:46-49)
     record_fn : optional callable ``x -> pytree`` of per-iteration scalars
     record_trajectory : also stack every iterate (observer parity; memory-
-        hostile on TPU, off by default)
+        hostile on the accelerator, off by default)
 
     Returns
     -------

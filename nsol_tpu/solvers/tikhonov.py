@@ -20,7 +20,7 @@ Minimizer dispatch mirrors the reference's (:120-220):
   included): every reference loss ρ is concave in t = r², so the tangent
   majorizer ``½ Σ ρ'(r_k²)·r² + α·½‖Bx‖²`` is a valid MM surrogate whose
   minimizer solves the weighted normal equations — a handful of CG
-  iterations on the MXU instead of a line-searched quasi-Newton. Documented
+  iterations instead of a line-searched quasi-Newton. Documented
   improvement over the reference's scipy L-BFGS-B escape hatch; same
   stationary points (the IRLS fixed-point condition IS ∇cost = 0 on the
   free variables), box bounds handled projected-Newton style: active
@@ -105,8 +105,7 @@ def tikhonov_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha,
                    minimizer="lsmr", iter_max=10,
                    bounds=(0.0, np.inf), axis_name=None,
                    normal_A=None, normal_B=None, At_b=None,
-                   irls_cg_iters=8, normal_M=None,
-                   normal_W=None, grad_W=None):
+                   irls_cg_iters=8):
     """Return the minimizer estimate. Pure function; callers jit.
 
     ``A/A_adj`` map the solution space to data space; ``B/B_adj`` to the
@@ -135,16 +134,13 @@ def tikhonov_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha,
 
     if minimizer == "cg":
         alpha_t = jnp.asarray(alpha, dtype)
-        if normal_M is not None:
-            apply_M = lambda v: normal_M(v, alpha_t)
-        else:
-            nA = (normal_A if normal_A is not None
-                  else (lambda v: A_adj(A(v))))
-            nB = (normal_B if normal_B is not None
-                  else (lambda v: B_adj(B(v))))
+        nA = (normal_A if normal_A is not None
+              else (lambda v: A_adj(A(v))))
+        nB = (normal_B if normal_B is not None
+              else (lambda v: B_adj(B(v))))
 
-            def apply_M(v):
-                return nA(v) + alpha_t * nB(v)
+        def apply_M(v):
+            return nA(v) + alpha_t * nB(v)
 
         rhs = (At_b if At_b is not None else A_adj(b)) \
             + alpha_t * B_adj(b_reg)
@@ -205,29 +201,19 @@ def tikhonov_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha,
         # iterate off the Krylov minimizer when free coordinates overshoot
         # a bound, so per-sweep descent is the typical behavior, not a
         # strict guarantee (in practice the active-set freeze makes large
-        # overshoots rare; observed monotone on the tested problems). Every
-        # operator
-        # application rides the MXU matmul path when A/normal_B do. Works
+        # overshoots rare; observed monotone on the tested problems). Works
         # under shard_map too: weights and masks are elementwise-local, CG
         # inner products psum over ``axis_name``.
         alpha_t = jnp.asarray(alpha, dtype)
         nB = normal_B if normal_B is not None else (lambda v: B_adj(B(v)))
         grad_rho = lf.gradient_loss(data_loss)
 
-        # Streaming-kernel hooks (past-VMEM volumes, ops/pallas/robust.py):
-        # ``normal_W(vf, wts, alpha) -> Aᵀ(wts·A vf) + α·BᵀB vf`` fuses the
-        # weighted SPD apply into ONE pass; ``grad_W(x, wts_r, alpha) ->
-        # Aᵀ(wts_r) + α·BᵀB x`` fuses the sweep gradient. Defaults keep the
-        # operator-composition form.
         def sweep(x, _):
             r = A(x) - b
             wts = grad_rho(r * r, f_scale=data_loss_scale)
             # ∇cost = Aᵀ(ρ'(r²)·r) + α BᵀBx — the majorizer's gradient
             # coincides with it at the expansion point.
-            if grad_W is not None:
-                g = grad_W(x, wts * r, alpha_t)
-            else:
-                g = A_adj(wts * r) + alpha_t * nB(x)
+            g = A_adj(wts * r) + alpha_t * nB(x)
             if bounds is None:
                 free = jnp.ones_like(x)
             else:
@@ -238,10 +224,7 @@ def tikhonov_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha,
 
             def apply_M(v):
                 vf = free * v
-                if normal_W is not None:
-                    core = normal_W(vf, wts, alpha_t)
-                else:
-                    core = A_adj(wts * A(vf)) + alpha_t * nB(vf)
+                core = A_adj(wts * A(vf)) + alpha_t * nB(vf)
                 return free * core + (v - vf)
 
             v = cg(apply_M, -free * g, jnp.zeros_like(x),

@@ -2,7 +2,7 @@
 
 Parity port of the reference engine (nsol/solver_parameter_study.py:29-335)
 — same file schema, header validation, append/resume semantics — with a
-TPU-native fast path: when every swept parameter is a traced scalar of the
+vmapped fast path: when every swept parameter is a traced scalar of the
 solver (e.g. the ``alpha×rho`` grid), the whole cartesian product executes
 as ONE vmapped jitted program instead of the reference's serial Python loop
 (nsol/solver_parameter_study.py:170-221), optionally sharded across a
@@ -140,7 +140,7 @@ class SolverParameterStudy(ParameterStudy):
                 continue
             # numeric settings match up to the reference's 1e-6 header
             # tolerance (combined rel+abs so large magnitudes compare
-            # relatively — ADVICE r4); everything else must be literal
+            # relatively); everything else must be literal
             if (_is_float(value) and _is_float(prev)
                     and math.isclose(float(value), float(prev),
                                      rel_tol=1e-6, abs_tol=1e-6)):
@@ -154,7 +154,7 @@ class SolverParameterStudy(ParameterStudy):
         Stored values are the writer's strings; numeric values match to
         the study engine's 1e-6 tolerance (combined rel+abs, so
         large-magnitude grid values compare relatively and sub-1e-6
-        grid spacings are not silently merged — ADVICE r4), everything
+        grid spacings are not silently merged), everything
         else literally."""
         for stored in stored_rows:
             if len(stored) != len(vals):

@@ -4,7 +4,7 @@ The reference leans on pysitk for wall-clock timing
 (ph.start_timing/stop_timing around Solver._run, nsol/solver.py:152-166)
 and console printing (ph.print_info/print_title/print_subtitle). This module
 re-provides that runtime-utility surface; device work is synchronized with
-``block_until_ready`` before stopping the clock so TPU timings are honest.
+``block_until_ready`` before stopping the clock so device timings are honest.
 """
 
 import datetime

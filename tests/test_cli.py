@@ -2,7 +2,7 @@
 
 Ports the reference's strategy (tests/run_denoising_test.py etc.): run each
 CLI on the bundled 2-D and 3-D data with few iterations and assert success.
-Subprocesses pin the CPU backend via NSOL_TPU_PLATFORM.
+Subprocesses pin the CPU backend via JAX_PLATFORMS=cpu.
 """
 
 import os
@@ -20,8 +20,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _run(args):
     env = dict(os.environ)
-    env.pop("JAX_PLATFORMS", None)
-    env["NSOL_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO
     return subprocess.run([sys.executable] + args, env=env, cwd=REPO,
                           capture_output=True, text=True, timeout=600)
@@ -228,220 +227,6 @@ def test_study_nii_metadata_roundtrip(tmp_path):
     assert len(galleries) == 2  # one per alpha
 
 
-def _run_fused(args):
-    """Run a CLI with the fused-kernel path forced on (interpreter mode)."""
-    env = dict(os.environ)
-    env.pop("JAX_PLATFORMS", None)
-    env["NSOL_TPU_PLATFORM"] = "cpu"
-    env["NSOL_TPU_FUSED_INTERPRET"] = "1"
-    env["PYTHONPATH"] = REPO
-    return subprocess.run([sys.executable] + args, env=env, cwd=REPO,
-                          capture_output=True, text=True, timeout=600)
-
-
-def test_run_denoising_fused_path_matches_xla_cli(tmp_path):
-    """The PD fused-kernel CLI branch produces the same image as the XLA
-    branch (uint8-rounded png round trip)."""
-    from PIL import Image
-
-    obs = os.path.join(DATA, "2D_Lena_256_noise.png")
-    out_xla = str(tmp_path / "xla.png")
-    out_fused = str(tmp_path / "fused.png")
-    base = ["nsol_run_denoising.py", "--observation", obs,
-            "--reconstruction-type", "TVL2", "--iterations", "5",
-            "--alpha", "0.6"]
-    p = _run(base + ["--result", out_xla])
-    assert p.returncode == 0, p.stderr[-2000:]
-    p = _run_fused(base + ["--result", out_fused])
-    assert p.returncode == 0, p.stderr[-2000:]
-    a = np.asarray(Image.open(out_xla), dtype=np.int16)
-    b = np.asarray(Image.open(out_fused), dtype=np.int16)
-    assert np.max(np.abs(a - b)) <= 1  # rounding at the uint8 boundary
-
-
-def test_run_deconvolution_fused_path_matches_xla_cli(tmp_path):
-    """The ADMM+CG fused-kernel CLI branch == the XLA minimizer='cg'
-    branch on the same problem."""
-    from PIL import Image
-
-    obs = os.path.join(DATA, "2D_Lena_256_blur_noise.png")
-    out_xla = str(tmp_path / "xla.png")
-    out_fused = str(tmp_path / "fused.png")
-    base = ["nsol_run_deconvolution.py", "--observation", obs,
-            "--reconstruction-type", "TVL2", "--solver", "ADMM",
-            "--minimizer", "cg", "--iterations", "3", "--iter-max", "4",
-            "--blur", "1", "--alpha", "0.01"]
-    p = _run(base + ["--result", out_xla])
-    assert p.returncode == 0, p.stderr[-2000:]
-    p = _run_fused(base + ["--result", out_fused])
-    assert p.returncode == 0, p.stderr[-2000:]
-    a = np.asarray(Image.open(out_xla), dtype=np.int16)
-    b = np.asarray(Image.open(out_fused), dtype=np.int16)
-    assert np.max(np.abs(a - b)) <= 1
-
-
-def test_run_deconvolution_blocked_path_matches_xla_cli(tmp_path):
-    """The past-VMEM streaming branch (z-blocked Pallas solve, forced via
-    NSOL_TPU_FORCE_BLOCKED on the 64³ phantom) == the XLA minimizer='cg'
-    branch on the same 3-D problem."""
-    from nsol_tpu.io.nifti import read_nifti
-
-    obs = os.path.join(DATA, "3D_SheppLoganPhantom_64.nii.gz")
-    out_xla = str(tmp_path / "xla.nii.gz")
-    out_blocked = str(tmp_path / "blocked.nii.gz")
-    base = ["nsol_run_deconvolution.py", "--observation", obs,
-            "--reconstruction-type", "TVL2", "--solver", "ADMM",
-            "--minimizer", "cg", "--iterations", "3", "--iter-max", "4",
-            "--blur", "1", "--alpha", "0.01"]
-    p = _run(base + ["--result", out_xla])
-    assert p.returncode == 0, p.stderr[-2000:]
-    env = dict(os.environ)
-    env.pop("JAX_PLATFORMS", None)
-    env["NSOL_TPU_PLATFORM"] = "cpu"
-    env["NSOL_TPU_FUSED_INTERPRET"] = "1"
-    env["NSOL_TPU_FORCE_BLOCKED"] = "1"
-    env["PYTHONPATH"] = REPO
-    # NSOL_TPU_EXACT=1: pure-f32 blocked state for the strict parity leg
-    # (the CLI DEFAULT is compact_dirs since round 5)
-    env["NSOL_TPU_EXACT"] = "1"
-    p = subprocess.run(
-        [sys.executable] + base + ["--result", out_blocked], env=env,
-        cwd=REPO, capture_output=True, text=True, timeout=600)
-    assert p.returncode == 0, p.stderr[-2000:]
-    a = read_nifti(out_xla).data
-    b = read_nifti(out_blocked).data
-    scale = max(1.0, float(np.abs(a).max()))
-    assert np.max(np.abs(a - b)) / scale < 5e-5
-
-    # the compact_dirs DEFAULT (round 5): voxel deviations stay in the
-    # rounded-direction class (~2e-4-grade), 25-50x tighter than the
-    # full-compact opt-in below
-    env.pop("NSOL_TPU_EXACT")
-    out_dirs = str(tmp_path / "blocked_dirs.nii.gz")
-    p = subprocess.run(
-        [sys.executable] + base + ["--result", out_dirs], env=env,
-        cwd=REPO, capture_output=True, text=True, timeout=600)
-    assert p.returncode == 0, p.stderr[-2000:]
-    d = read_nifti(out_dirs).data
-    assert np.max(np.abs(a - d)) / scale < 1e-3
-
-    # NSOL_TPU_COMPACT=1 opts into the faster FULL bf16 CG state:
-    # objective-equal class but voxel-level deviations up to ~1-2% (TV
-    # flat directions) — which is why it is the opt-in, not the default
-    env["NSOL_TPU_COMPACT"] = "1"
-    out_compact = str(tmp_path / "blocked_compact.nii.gz")
-    p = subprocess.run(
-        [sys.executable] + base + ["--result", out_compact], env=env,
-        cwd=REPO, capture_output=True, text=True, timeout=600)
-    assert p.returncode == 0, p.stderr[-2000:]
-    c = read_nifti(out_compact).data
-    assert np.max(np.abs(a - c)) / scale < 2e-2
-
-
-def test_study_sweeps_fused_vs_xla_equivalence(tmp_path):
-    """The fused-kernel sweep fast paths (denoising PD + deconvolution
-    ADMM) produce the SAME persisted study artifacts as the XLA sweep:
-    run each study CLI twice — NSOL_TPU_FUSED_INTERPRET forcing the
-    Pallas route vs the default XLA route on CPU — and compare every
-    measure file and the reconstructions npz."""
-
-    def run_pair(cli, args, name, extra_env=None):
-        outs = {}
-        for tag, env_extra in (("xla", {}),
-                               ("fused", {"NSOL_TPU_FUSED_INTERPRET":
-                                          "1"})):
-            out = str(tmp_path / (name + "_" + tag))
-            env = dict(os.environ)
-            env.pop("JAX_PLATFORMS", None)
-            env["NSOL_TPU_PLATFORM"] = "cpu"
-            env["PYTHONPATH"] = REPO
-            env.update(env_extra)
-            p = subprocess.run(
-                [sys.executable, cli] + args + ["--dir-output", out],
-                env=env, cwd=REPO, capture_output=True, text=True,
-                timeout=600)
-            assert p.returncode == 0, p.stderr[-2000:]
-            outs[tag] = out
-        for m in ("Reg", "Data"):
-            a = np.loadtxt(os.path.join(
-                outs["xla"], "%s_measure_%s.txt" % (name, m)))
-            b = np.loadtxt(os.path.join(
-                outs["fused"], "%s_measure_%s.txt" % (name, m)))
-            np.testing.assert_allclose(b, a, rtol=2e-3,
-                                       atol=2e-3 * abs(a).max(),
-                                       err_msg="%s/%s" % (name, m))
-        ra = np.load(os.path.join(outs["xla"],
-                                  "%s_reconstructions.npz" % name))
-        rb = np.load(os.path.join(outs["fused"],
-                                  "%s_reconstructions.npz" % name))
-        for k in ("0", "1"):
-            # float16 storage: ulp ~= 0.125 at the image magnitude ~255,
-            # so tiny f32 path differences can cross a rounding boundary
-            atol = 2 * np.spacing(np.float16(abs(ra[k]).max()))
-            np.testing.assert_allclose(
-                rb[k].astype(np.float32), ra[k].astype(np.float32),
-                atol=float(atol), err_msg=name)
-
-    run_pair("nsol_run_denoising_study.py",
-             ["--observation",
-              os.path.join(DATA, "2D_Lena_256_noise.png"),
-              "--reconstruction-type", "TVL2", "--iterations", "5",
-              "--alpha-range", "0.1", "0.5", "2"], "TVL2")
-    run_pair("nsol_run_deconvolution_study.py",
-             ["--observation",
-              os.path.join(DATA, "2D_Lena_256_blur_noise.png"),
-              "--reconstruction-type", "TVL2", "--solver", "ADMM",
-              "--minimizer", "cg", "--iterations", "4", "--iter-max",
-              "4", "--alpha-range", "0.01", "0.05", "2"], "TVL2")
-    run_pair("nsol_run_deconvolution_study.py",
-             ["--observation",
-              os.path.join(DATA, "2D_Lena_256_blur_noise.png"),
-              "--reconstruction-type", "TK1L2",
-              "--minimizer", "cg", "--iter-max", "6",
-              "--alpha-range", "0.01", "0.05", "2"], "TK1L2")
-
-
-def test_deconvolution_study_default_flags_route_fused(tmp_path):
-    """VERDICT r3 item 3's done-criterion: a DEFAULT-flag
-    run_deconvolution_study invocation (no --minimizer) resolves
-    minimizer='auto' to cg and routes through the fused whole-solve
-    kernel — its artifacts match an explicit '--minimizer cg' XLA run.
-    An explicit '--minimizer lsmr' still runs the reference engine."""
-    common = ["--observation",
-              os.path.join(DATA, "2D_Lena_256_blur_noise.png"),
-              "--reconstruction-type", "TVL2", "--solver", "ADMM",
-              "--iterations", "4", "--iter-max", "4",
-              "--alpha-range", "0.01", "0.05", "2"]
-
-    def run(args, out, env_extra):
-        env = dict(os.environ)
-        env.pop("JAX_PLATFORMS", None)
-        env["NSOL_TPU_PLATFORM"] = "cpu"
-        env["PYTHONPATH"] = REPO
-        env.update(env_extra)
-        p = subprocess.run(
-            [sys.executable, "nsol_run_deconvolution_study.py"] + args
-            + ["--dir-output", out], env=env, cwd=REPO,
-            capture_output=True, text=True, timeout=600)
-        assert p.returncode == 0, p.stderr[-2000:]
-
-    out_default = str(tmp_path / "default_fused")
-    run(common, out_default, {"NSOL_TPU_FUSED_INTERPRET": "1"})
-    out_cg = str(tmp_path / "explicit_cg_xla")
-    run(common + ["--minimizer", "cg"], out_cg, {})
-    for m in ("Reg", "Data"):
-        a = np.loadtxt(os.path.join(out_cg, "TVL2_measure_%s.txt" % m))
-        b = np.loadtxt(os.path.join(out_default,
-                                    "TVL2_measure_%s.txt" % m))
-        np.testing.assert_allclose(b, a, rtol=2e-3,
-                                   atol=2e-3 * abs(a).max())
-
-    out_lsmr = str(tmp_path / "explicit_lsmr")
-    run(common + ["--minimizer", "lsmr"], out_lsmr, {})
-    assert os.path.exists(os.path.join(out_lsmr,
-                                       "TVL2_reconstructions.npz"))
-
-
 def test_interactive_viewer_fallback(tmp_path, monkeypatch):
     """try_interactive_3d: no itksnap/napari here -> returns False;
     with a fake itksnap on PATH it writes the volumes as NIfTI and
@@ -473,7 +258,7 @@ def test_interactive_viewer_fallback(tmp_path, monkeypatch):
 
 
 def test_profiling_trace_cli(tmp_path):
-    """profiling.py has real consumers (VERDICT r4 weak #3): the
+    """profiling.py has real consumers: the
     run_denoising --trace flag wraps the solve in profiling.trace and a
     trace directory materializes with profiler artifacts."""
     result = str(tmp_path / "out.png")
@@ -497,72 +282,3 @@ def test_profiling_annotate_smoke():
 
     with profiling.annotate("solve"):
         assert 1 + 1 == 2
-
-
-def test_run_deconvolution_robust_blocked_path_matches_xla_cli(tmp_path):
-    """The past-VMEM ROBUST streaming branch (blocked IRLS solve,
-    ops/pallas/robust.py, forced via NSOL_TPU_FORCE_BLOCKED on the 64³
-    phantom) == the XLA minimizer='irls' branch on the same huber
-    problem (round 5, VERDICT r4 item 1)."""
-    from nsol_tpu.io.nifti import read_nifti
-
-    obs = os.path.join(DATA, "3D_SheppLoganPhantom_64.nii.gz")
-    out_xla = str(tmp_path / "xla.nii.gz")
-    out_blocked = str(tmp_path / "blocked.nii.gz")
-    base = ["nsol_run_deconvolution.py", "--observation", obs,
-            "--reconstruction-type", "TVL2", "--solver", "ADMM",
-            "--minimizer", "irls", "--data-loss", "huber",
-            "--iterations", "2", "--iter-max", "3",
-            "--irls-cg-iters", "4",
-            "--blur", "1", "--alpha", "0.01"]
-    p = _run(base + ["--result", out_xla])
-    assert p.returncode == 0, p.stderr[-2000:]
-    env = dict(os.environ)
-    env.pop("JAX_PLATFORMS", None)
-    env["NSOL_TPU_PLATFORM"] = "cpu"
-    env["NSOL_TPU_FUSED_INTERPRET"] = "1"
-    env["NSOL_TPU_FORCE_BLOCKED"] = "1"
-    env["PYTHONPATH"] = REPO
-    p = subprocess.run(
-        [sys.executable] + base + ["--result", out_blocked], env=env,
-        cwd=REPO, capture_output=True, text=True, timeout=600)
-    assert p.returncode == 0, p.stderr[-2000:]
-    a = read_nifti(out_xla).data
-    b = read_nifti(out_blocked).data
-    scale = max(1.0, float(np.abs(a).max()))
-    assert np.max(np.abs(a - b)) / scale < 5e-5
-
-
-def test_run_deconvolution_study_robust_streaming_hooks(tmp_path):
-    """Robust (huber) deconvolution STUDY on a 3-D volume with the
-    streaming hooks forced (round 5): the wrapper's IRLS engine rides
-    the blocked weighted-normal kernels through the study engine's
-    sweep, and the persisted artifacts match the un-hooked run."""
-    obs = os.path.join(DATA, "3D_SheppLoganPhantom_64.nii.gz")
-    args = ["nsol_run_deconvolution_study.py",
-            "--observation", obs,
-            "--reconstruction-type", "TVL2",
-            "--data-loss", "huber",
-            "--minimizer", "irls",
-            "--iterations", "2",
-            "--iter-max", "2",
-            "--irls-cg-iters", "3",
-            "--alpha-range", "0.01", "0.05", "2"]
-    outs = {}
-    for tag, extra in (("plain", {}),
-                       ("hooked", {"NSOL_TPU_FUSED_INTERPRET": "1",
-                                   "NSOL_TPU_FORCE_BLOCKED": "1"})):
-        out = str(tmp_path / tag)
-        env = dict(os.environ)
-        env.pop("JAX_PLATFORMS", None)
-        env["NSOL_TPU_PLATFORM"] = "cpu"
-        env["PYTHONPATH"] = REPO
-        env.update(extra)
-        p = subprocess.run(
-            [sys.executable] + args + ["--dir-output", out], env=env,
-            cwd=REPO, capture_output=True, text=True, timeout=600)
-        assert p.returncode == 0, p.stderr[-2000:]
-        outs[tag] = out
-    a = np.loadtxt(os.path.join(outs["plain"], "TVL2_measure_Data.txt"))
-    b = np.loadtxt(os.path.join(outs["hooked"], "TVL2_measure_Data.txt"))
-    np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4 * abs(a).max())

@@ -1,7 +1,7 @@
 """Determinism tests: bitwise-reproducible jit outputs.
 
 SURVEY.md §5 maps the reference's (absent) race-detection concern class to
-determinism guarantees on TPU: the same jitted solve on the same inputs
+determinism guarantees on the accelerator: the same jitted solve on the same inputs
 must produce bitwise-identical results across executions, and the sharded
 execution must be deterministic as well.
 """

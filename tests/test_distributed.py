@@ -1,5 +1,4 @@
-"""Real multi-process execution of the distributed seam (round 5,
-VERDICT r4 item 4 / missing #2).
+"""Real multi-process execution of the distributed seam.
 
 Everything else in the parallel stack is covered by single-process CPU
 meshes; the one seam those cannot execute is the PROCESS boundary —
@@ -8,7 +7,7 @@ the `jax.distributed` coordinator handshake, cross-process
 processes, and per-process result read-back. This test spawns TWO
 localhost worker processes (2 virtual CPU devices each → a 4-way
 "space" mesh), runs `sharded_tv_admm_solve(process_local=True)` in
-linear, robust (IRLS) and forced-blocked forms, and asserts the
+linear and robust (IRLS) forms, and asserts the
 assembled per-process rows equal the single-process sharded solve.
 BASELINE config 5's launch recipe (parallel/distributed.py docstring)
 is exactly what each worker executes.
@@ -24,14 +23,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _WORKER = r"""
 import os, sys
-os.environ.pop("JAX_PLATFORMS", None)
-os.environ["NSOL_TPU_PLATFORM"] = "cpu"
+os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 
 port, pid, outdir = sys.argv[1], int(sys.argv[2]), sys.argv[3]
 
 import numpy as np
-import nsol_tpu  # configures the CPU platform before jax initializes
 from nsol_tpu.parallel import distributed as dist
 
 dist.initialize(coordinator_address="localhost:" + port,
@@ -53,8 +50,7 @@ lo, hi = dist.process_local_slice(shape, mesh)
 b_loc = b_full[lo:hi]
 
 for tag, kw in (("linear", {}),
-                ("robust", {"data_loss": "huber"}),
-                ("blocked", {"use_blocked": True})):
+                ("robust", {"data_loss": "huber"})):
     x = sharded_tv_admm_solve(
         mesh, cov, b_loc, b_loc.copy(), 0.05, 0.5, iterations=2,
         iter_max=3, process_local=True, **kw)
@@ -72,9 +68,8 @@ def test_two_process_distributed_solve(tmp_path):
         port = str(s.getsockname()[1])
 
     env = dict(os.environ)
-    env.pop("JAX_PLATFORMS", None)
     env.pop("XLA_FLAGS", None)
-    env["NSOL_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO
     procs = [subprocess.Popen(
         [sys.executable, str(worker), port, str(i), str(tmp_path)],
@@ -98,8 +93,7 @@ def test_two_process_distributed_solve(tmp_path):
     cov = np.diag([1.0] * 3)
 
     for tag, kw in (("linear", {}),
-                    ("robust", {"data_loss": "huber"}),
-                    ("blocked", {"use_blocked": True})):
+                    ("robust", {"data_loss": "huber"})):
         want = np.asarray(sharded_tv_admm_solve(
             mesh, cov, b_full, b_full.copy(), 0.05, 0.5, iterations=2,
             iter_max=3, **kw))

@@ -78,7 +78,7 @@ def test_data_writer_roundtrips(tmp_path, rng):
 
 def test_standalone_data_generation(tmp_path):
     """A checkout without the reference data dir can generate its full
-    stand-in input set (VERDICT round-2 item 7): every bundled-name file is
+    stand-in input set: every bundled-name file is
     produced deterministically and loads through the package's readers."""
     from nsol_tpu.data import _FILES, generate_standalone_data
 
@@ -109,7 +109,7 @@ def test_standalone_data_generation(tmp_path):
 
 
 def test_standalone_data_frozen_hashes(tmp_path):
-    """VERDICT r3 item 7: regenerating the standalone stand-in inputs
+    """Regenerating the standalone stand-in inputs
     reproduces the frozen content hashes byte-for-byte (decoded pixel /
     volume content), so standalone-benchmark objectives anchor."""
     from nsol_tpu.data import (generate_standalone_data,

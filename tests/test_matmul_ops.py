@@ -1,4 +1,4 @@
-"""MXU-path operators must match the roll/composition implementations."""
+"""Matmul-form operators must match the roll/composition implementations."""
 
 import numpy as np
 import pytest

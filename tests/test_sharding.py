@@ -90,7 +90,7 @@ def test_sharded_blur_matches_local_wrap(mesh, ndim, rng):
 
 @pytest.mark.parametrize("ndim", [2, 3])
 def test_sharded_matmul_blur_matches_local_wrap(mesh, ndim, rng):
-    """MXU sharded blur (ring halo + band/circulant matmuls) equals the
+    """Matmul sharded blur (ring halo + band/circulant matmuls) equals the
     single-device wrap convolution."""
     shape = (16, 24) if ndim == 2 else (16, 12, 10)
     cov = np.diag([1.5, 1.0, 0.8][:ndim]) ** 2
@@ -110,7 +110,7 @@ def test_sharded_matmul_blur_matches_local_wrap(mesh, ndim, rng):
 
 @pytest.mark.parametrize("ndim", [2, 3])
 def test_sharded_matmul_normal_blur_matches_local(mesh, ndim, rng):
-    """Sharded AᵀA (self-correlated separable pass on the MXU) equals the
+    """Sharded AᵀA (self-correlated separable pass as matmuls) equals the
     single-device fused normal operator."""
     shape = (16, 24) if ndim == 2 else (16, 12, 10)
     cov = np.diag([1.5, 1.0, 0.8][:ndim]) ** 2
@@ -178,7 +178,7 @@ def test_sharded_tv_admm_matches_single_device(mesh, minimizer, rng):
     """End-to-end: the full sharded ADMM (halo stencils + psum-reduced
     Krylov inner solve) equals the single-device solve on the assembled
     volume — for both the augmented-CGLS path and the fused
-    normal-equation MXU path (the auto-selected default)."""
+    normal-equation matmul path (the auto-selected default)."""
     shape = (16, 12, 10)
     cov = np.diag([0.8, 0.8, 0.8]) ** 2
     kern = K.gaussian_kernel(cov, alpha_cut=3, spacing=np.ones(3))
@@ -243,7 +243,7 @@ def test_sharded_robust_admm_matches_single_device(mesh, rng):
 
 def test_sharded_robust_admm_autoselects_irls(mesh, rng):
     """Robust loss + separable blur auto-selects shard-aware IRLS
-    (reweighted normal-equation CG on the sharded MXU operators); the
+    (reweighted normal-equation CG on the sharded matmul operators); the
     sharded solve equals the single-device IRLS trajectory."""
     shape = (16, 12, 10)
     cov = np.diag([0.8, 0.8, 0.8]) ** 2
@@ -342,76 +342,3 @@ def test_sharded_admm_process_local_matches_global_input(mesh, rng):
     np.testing.assert_array_equal(np.asarray(x_pl), x_global)
     np.testing.assert_array_equal(dist.process_local_data(x_pl),
                                   x_global[start:stop])
-
-
-def test_sharded_blocked_normal_operator_matches_local(mesh, rng):
-    """The sharded streaming-blocked apply (per-shard Pallas kernel over
-    ppermute'd wrap halos, runtime global-boundary Laplacian rows) must
-    equal the single-device XLA normal operators — VERDICT r3 item 1's
-    parity gate."""
-    from nsol_tpu.parallel.blocked_halo import \
-        make_sharded_blocked_normal_operator
-
-    shape = (4 * N_DEV, 16, 16)
-    cov = np.diag([1.0, 1.0, 1.0])
-    v = rng.rand(*shape).astype(np.float32)
-    nA = C.make_normal_blur_operator(cov, alpha_cut=3, shape=shape,
-                                     dtype=np.float32)
-    want = np.asarray(jax.jit(
-        lambda u: nA(u) + 0.7 * G.gradient_normal(u))(jnp.asarray(v)))
-
-    local_shape = (shape[0] // N_DEV,) + shape[1:]
-    ap = make_sharded_blocked_normal_operator(
-        local_shape, cov, axis_name="space", n_shards=N_DEV,
-        dtype=jnp.float32, interpret=True)
-    # the blur halo (6) exceeds the local extent (4): multi-hop exchange
-    assert ap.halo > local_shape[0]
-    mapped = jax.jit(jax.shard_map(
-        lambda u: ap(u, jnp.float32(0.7)), mesh=mesh,
-        in_specs=(P("space"),), out_specs=P("space"), check_vma=False))
-    got = np.asarray(mapped(jnp.asarray(v)))
-    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-5)
-
-
-def test_sharded_admm_blocked_matches_matmul_path(mesh, rng):
-    """sharded_tv_admm_solve(use_blocked=True) — the composition of
-    spatial sharding with the streaming blocked Pallas kernels — must
-    converge to the same solution as the sharded XLA matmul path."""
-    import scipy.ndimage as ndi
-
-    shape = (4 * N_DEV, 12, 10)
-    cov = np.diag([0.8, 0.8, 0.8]) ** 2
-    kern = K.gaussian_kernel(cov, alpha_cut=3, spacing=np.ones(3))
-    b = ndi.convolve(rng.rand(*shape), kern, mode="wrap").astype(np.float32)
-
-    x_ref = np.asarray(sharded_tv_admm_solve(
-        mesh, cov, b, np.array(b), alpha=0.01, rho=0.5,
-        iterations=4, iter_max=4, use_blocked=False))
-    x_blk = np.asarray(sharded_tv_admm_solve(
-        mesh, cov, b, np.array(b), alpha=0.01, rho=0.5,
-        iterations=4, iter_max=4, use_blocked=True))
-    np.testing.assert_allclose(x_blk, x_ref, atol=2e-6, rtol=1e-5)
-
-
-def test_sharded_robust_admm_blocked_matches_matmul_path(mesh, rng):
-    """Round 5 (VERDICT r4 item 8): sharded_tv_admm_solve with a ROBUST
-    loss and use_blocked=True — the streaming blocked weighted-normal /
-    gradient kernels (ops/pallas/robust.py prepadded forms) composed
-    with ppermute halos — must converge to the sharded matmul-IRLS
-    path's solution."""
-    import scipy.ndimage as ndi
-
-    shape = (4 * N_DEV, 12, 10)
-    cov = np.diag([0.8, 0.8, 0.8]) ** 2
-    kern = K.gaussian_kernel(cov, alpha_cut=3, spacing=np.ones(3))
-    b = ndi.convolve(rng.rand(*shape), kern,
-                     mode="wrap").astype(np.float32)
-    b += (0.2 * (rng.rand(*shape) < 0.02)).astype(np.float32)
-
-    x_ref = np.asarray(sharded_tv_admm_solve(
-        mesh, cov, b, np.array(b), alpha=0.01, rho=0.5, iterations=3,
-        iter_max=3, data_loss="huber", use_blocked=False))
-    x_blk = np.asarray(sharded_tv_admm_solve(
-        mesh, cov, b, np.array(b), alpha=0.01, rho=0.5, iterations=3,
-        iter_max=3, data_loss="huber", use_blocked=True))
-    np.testing.assert_allclose(x_blk, x_ref, atol=2e-6, rtol=1e-5)

@@ -204,7 +204,7 @@ def test_tikhonov_lbfgs_path_vs_scipy(rng):
         minimizer="L-BFGS-B", iter_max=100))
 
     ours_cost = cost_np(x_ours.reshape(-1))
-    # Converged-objective parity within 1% (BASELINE.md criterion)
+    # Converged-objective parity within 1%
     assert ours_cost <= res.fun * 1.01
 
 
@@ -748,130 +748,3 @@ def test_admm_wrapper_auto_minimizer_builds_hints(rng):
 
     s_auto.set_data_loss("huber")
     assert s_auto._resolved_minimizer() == "irls"
-
-
-def test_fused_sweep_cache_shared_across_instances(rng, monkeypatch):
-    """VERDICT r3 item 6: a second run_sweep on a NEW solver instance of
-    the same static config performs ZERO Mosaic kernel builds — the
-    built kernel + jitted sweep callable are cached at module scope."""
-    import nsol_tpu.ops.pallas.fused as fused
-    import nsol_tpu.solvers.wrappers as W
-    from nsol_tpu.ops import conv as C, grad as G
-
-    monkeypatch.setenv("NSOL_TPU_FUSED_INTERPRET", "1")
-    import collections
-    monkeypatch.setattr(W, "_FUSED_SWEEP_CACHE",
-                        collections.OrderedDict())
-    calls = {"n": 0}
-    real = fused.make_fused_admm_solver
-
-    def counting(*a, **k):
-        calls["n"] += 1
-        return real(*a, **k)
-
-    monkeypatch.setattr(fused, "make_fused_admm_solver", counting)
-
-    shape = (24, 16)
-    cov = np.diag([1.0, 1.0])
-    b = rng.rand(*shape).astype(np.float32)
-    A, A_adj = C.make_blur_operators(cov, alpha_cut=3, shape=shape,
-                                     dtype=np.float32)
-    Bg, Bg_adj = G.make_gradient_operators()
-    alphas = np.array([0.01, 0.05])
-
-    def run_fresh_instance():
-        s = W.ADMMLinearSolver(
-            A=A, A_adj=A_adj, b=b, B=Bg, B_adj=Bg_adj, x0=np.array(b),
-            alpha=0.01, rho=0.5, iterations=2, iter_max=3,
-            minimizer="cg", x_scale=float(b.max()), blur_cov=cov,
-            dimension=2)
-        x, _ = s.run_sweep({"alpha": alphas})
-        return x
-
-    x1 = run_fresh_instance()
-    assert calls["n"] == 1  # first instance builds the kernel
-    x2 = run_fresh_instance()
-    assert calls["n"] == 1  # second instance: zero new Mosaic builds
-    np.testing.assert_array_equal(x1, x2)
-
-
-def test_tikhonov_irls_streaming_hooks(rng):
-    """tikhonov_solve(minimizer='irls') with the streaming-kernel hooks
-    (normal_W/grad_W from ops/pallas/robust.py, interpret mode) follows
-    the operator-composition path exactly — the past-VMEM robust
-    Tikhonov wiring (VERDICT r4 item 1)."""
-    import scipy.ndimage as ndi
-
-    from nsol_tpu.ops import kernels as K, grad as G
-    from nsol_tpu.ops.conv import make_blur_operators
-    from nsol_tpu.ops.pallas.robust import (
-        make_blocked_blur_operator, make_blocked_weighted_normal_operator)
-    from nsol_tpu.solvers.tikhonov import tikhonov_solve
-
-    shape = (16, 16, 16)
-    cov = np.diag([1.0] * 3)
-    kern = K.gaussian_kernel(cov, alpha_cut=3, spacing=np.ones(3))
-    x_true = (rng.rand(*shape) > 0.6).astype(np.float32)
-    b = jnp.asarray(ndi.convolve(x_true, kern, mode="wrap")
-                    .astype(np.float32))
-    A, A_adj = make_blur_operators(cov, alpha_cut=3, shape=shape,
-                                   dtype=np.float32)
-    Bg, Bg_adj = G.make_gradient_operators()
-
-    import jax
-
-    def solve(**kw):
-        return jax.jit(lambda bb: tikhonov_solve(
-            A, A_adj, Bg, Bg_adj, bb, 0.0, bb, 0.05, data_loss="huber",
-            minimizer="irls", iter_max=3, irls_cg_iters=4,
-            normal_B=G.gradient_normal, **kw))(b)
-
-    want = np.asarray(solve())
-
-    blur_lap = make_blocked_blur_operator(shape, cov, with_lap=True,
-                                          interpret=True)
-    wnormal = make_blocked_weighted_normal_operator(shape, cov,
-                                                    interpret=True)
-    got = np.asarray(solve(
-        normal_W=lambda vf, wts, a: wnormal(vf, wts, a),
-        grad_W=lambda x, wr, a: blur_lap(wr, x, a)))
-    np.testing.assert_allclose(got, want, atol=5e-6)
-
-
-def test_wrapper_robust_streaming_hooks(monkeypatch):
-    """ADMMLinearSolver/TikhonovLinearSolver build the streaming robust
-    hooks (round 5) for past-VMEM 3-D robust problems — forced here via
-    the interpret+force envs on a small volume — and the hooked solve
-    matches the plain IRLS path."""
-    import jax
-
-    from nsol_tpu.ops.conv import make_blur_operators
-    from nsol_tpu.solvers.wrappers import ADMMLinearSolver
-
-    rng_l = np.random.RandomState(3)
-    shape = (16, 16, 16)
-    cov = np.diag([1.0] * 3)
-    kern = K.gaussian_kernel(cov, alpha_cut=3, spacing=np.ones(3))
-    b = ndi.convolve(rng_l.rand(*shape), kern,
-                     mode="wrap").astype(np.float32)
-    A, A_adj = make_blur_operators(cov, alpha_cut=3, shape=shape,
-                                   dtype=np.float32)
-    Bg, Bg_adj = G.make_gradient_operators()
-
-    def run():
-        s = ADMMLinearSolver(
-            A=A, A_adj=A_adj, b=np.array(b), B=Bg, B_adj=Bg_adj,
-            x0=np.array(b), alpha=0.01, rho=0.5, iterations=2,
-            iter_max=3, irls_cg_iters=4, data_loss="huber",
-            minimizer="irls", blur_cov=cov)
-        s.run()
-        return s, s.get_x()
-
-    s_plain, x_plain = run()
-    assert s_plain._normal_W is None  # no force → hooks out of scope
-
-    monkeypatch.setenv("NSOL_TPU_FUSED_INTERPRET", "1")
-    monkeypatch.setenv("NSOL_TPU_FORCE_BLOCKED", "1")
-    s_hook, x_hook = run()
-    assert s_hook._normal_W is not None
-    np.testing.assert_allclose(x_hook, x_plain, atol=2e-5)

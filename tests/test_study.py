@@ -337,65 +337,8 @@ def test_computational_time_semantics_documented(tmp_path, rng):
     assert len(set(rows)) == 1  # amortized: every row carries the same value
 
 
-def test_hybrid_study_with_fused_tikhonov_sweep(tmp_path, monkeypatch):
-    """Engine-level composition: an alpha×data_loss Tikhonov study runs
-    the hybrid path (static data_loss, vmapped alpha) with each combo's
-    run_sweep routed through the fused Tikhonov kernel — persisted
-    artifacts must equal the XLA route's."""
-    import subprocess  # noqa: F401 (documentation of intent only)
-
-    import scipy.ndimage as ndi
-
-    from nsol_tpu.observer import Observer
-    from nsol_tpu.ops import kernels as K, grad as G, priors
-    from nsol_tpu.ops.conv import (make_blur_operators,
-                                   make_normal_blur_operator)
-    from nsol_tpu.solvers.wrappers import TikhonovLinearSolver
-    from nsol_tpu.study.engine import TikhonovLinearSolverParameterStudy
-
-    rng = np.random.RandomState(7)
-    shape = (16, 16)
-    cov = np.diag([1.0, 1.0])
-    kern = K.gaussian_kernel(cov, alpha_cut=3, spacing=np.ones(2))
-    observed = ndi.convolve((rng.rand(*shape) > 0.5) * 120.0, kern,
-                            mode="wrap")
-    A, A_adj = make_blur_operators(cov, alpha_cut=3, shape=shape,
-                                   dtype=np.float32)
-    nA = make_normal_blur_operator(cov, alpha_cut=3, shape=shape,
-                                   dtype=np.float32)
-    Bg, Bg_adj = G.make_gradient_operators()
-    params = {"alpha": [0.02, 0.1], "data_loss": ["linear"]}
-
-    def run(tag, fused):
-        if fused:
-            monkeypatch.setenv("NSOL_TPU_FUSED_INTERPRET", "1")
-        else:
-            monkeypatch.delenv("NSOL_TPU_FUSED_INTERPRET", raising=False)
-        hints = ({"blur_cov": cov, "reg_kind": "TK1"} if fused else {})
-        solver = TikhonovLinearSolver(
-            A=A, A_adj=A_adj, b=np.array(observed), B=Bg, B_adj=Bg_adj,
-            x0=np.array(observed), iter_max=5, minimizer="cg",
-            x_scale=float(observed.max()), normal_A=nA,
-            normal_B=G.gradient_normal, **hints)
-        observer = Observer()
-        observer.set_measures(
-            {"Reg": lambda x: priors.first_order_tikhonov(x, Bg)})
-        out = str(tmp_path / tag)
-        study = TikhonovLinearSolverParameterStudy(
-            solver, observer, dir_output=out, parameters=dict(params),
-            name="tk")
-        study.run()
-        return out
-
-    out_x = run("xla", fused=False)
-    out_f = run("fused", fused=True)
-    a = np.loadtxt(os.path.join(out_x, "tk_measure_Reg.txt"))
-    b = np.loadtxt(os.path.join(out_f, "tk_measure_Reg.txt"))
-    np.testing.assert_allclose(b, a, rtol=1e-3)
-
-
 def test_append_resume_skips_completed_rows(tmp_path, rng):
-    """VERDICT r3 item 8: re-running a killed sweep with the SAME grid in
+    """Re-running a killed sweep with the SAME grid in
     append mode executes only the missing combinations; a fully-stored
     grid runs nothing and leaves the files untouched."""
     # "killed mid-grid": the first run covered only 2 of 4 alphas
